@@ -1,10 +1,10 @@
-"""ectrans_tpu: a TPU-native spherical-harmonic spectral transform engine.
+"""ectrans_tpu: a JAX spherical-harmonic spectral transform engine.
 
-Brand-new JAX/XLA/Pallas implementation of the capabilities of ECMWF's
+Brand-new JAX/XLA implementation of the capabilities of ECMWF's
 ecTrans (the IFS spectral transform library): direct/inverse spherical
 harmonic transforms on full and reduced Gaussian grids, vorticity/divergence
 to wind conversion, horizontal derivatives, adjoints, spectral/grid-point
-norms, distributed (sharded) transforms over TPU meshes, and the
+norms, distributed (sharded) transforms over device meshes, and the
 limited-area bi-Fourier (LAM) path.
 """
 

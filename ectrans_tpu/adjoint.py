@@ -50,10 +50,8 @@ def inv_trans_adj(
         # _normalize=False: linear_transpose needs a structurally linear
         # trace; the RMS pre-scaling cancels exactly, so this is the same
         # operator (see fourier.synthesis)
-        # _engine="xla": pallas_call has no JAX transpose rule, so the
-        # adjoint always traces the einsum formulation (same operator)
         return inv_trans(res, spvor, spdiv, spsc, flags=flags, dtype=dtype,
-                         _normalize=False, _engine="xla")
+                         _normalize=False)
 
     transpose = jax.linear_transpose(fwd, *shapes)
     outs = transpose(grid_ad.astype(dtype))
@@ -97,8 +95,7 @@ def dir_trans_adj(
             i = 2
         if nfld_sc:
             sc = grids[i]
-        sv, sd, ss = dir_trans(res, u, v, sc, dtype=dtype, _normalize=False,
-                               _engine="xla")
+        sv, sd, ss = dir_trans(res, u, v, sc, dtype=dtype, _normalize=False)
         return tuple(x for x in (sv, sd, ss) if x is not None)
 
     cotangents = tuple(

@@ -1,6 +1,6 @@
 """On-disk cache for the Legendre-polynomial setup product.
 
-TPU-native equivalent of the reference's legpol checkpoint/restore
+The equivalent of the reference's legpol checkpoint/restore
 (``CDIO_LEGPOL='READF'/'WRITEF'/'MEMBUF'``, ``setup_trans.F90:360-384``,
 ``read_legpol_mod.F90`` / ``write_legpol_mod.F90``): the expensive setup
 product (the dense P̄ table) is cached as an ``.npz`` keyed by

@@ -17,7 +17,7 @@ import numpy as np
 import jax
 
 # The C API trades in double precision (like transi); enable x64 unless the
-# caller overrides (ECTRANS_TPU_CAPI_DTYPE=float32 for TPU backends without
+# caller overrides (ECTRANS_TPU_CAPI_DTYPE=float32 for backends without
 # fp64 support).
 _DTYPE = os.environ.get("ECTRANS_TPU_CAPI_DTYPE", "float64")
 if _DTYPE == "float64":

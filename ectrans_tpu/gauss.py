@@ -1,6 +1,6 @@
 """Gauss-Legendre nodes and weights (host precompute, float64).
 
-TPU-native re-implementation of the reference setup step that computes the
+A re-implementation of the reference setup step that computes the
 Gaussian latitudes of a Gaussian grid (reference: ``sugaw_mod.F90`` — initial
 guesses + Newton iteration to machine precision; weight formula in
 ``cpledn_mod.F90:128``).

@@ -1,6 +1,6 @@
 """Gaussian grid definitions: full, octahedral and custom reduced grids.
 
-Re-implements, TPU-first, the geometry layer of the reference
+Re-implements the geometry layer of the reference
 (``tpm_geometry.F90``, ``setup_geom_mod.F90:41-80`` for the per-latitude
 zonal truncation rules, and the benchmark's grid constructors
 ``ectrans-benchmark.F90:1039-1049``):

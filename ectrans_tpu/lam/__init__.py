@@ -1,6 +1,6 @@
 """Limited-area model (LAM) bi-Fourier transforms — the etrans variant.
 
-TPU-native re-design of the reference's ``src/etrans`` layer (SURVEY.md
+A JAX re-design of the reference's ``src/etrans`` layer (SURVEY.md
 §2.8): on a biperiodic plane both transform directions are Fourier
 transforms, so the spherical-harmonic Legendre stage is replaced by a
 meridional DFT (reference ELEINV/ELEDIR, ``eledir_mod.F90:72-101``) and the

@@ -1,6 +1,6 @@
 """LAM inverse/direct bi-Fourier transforms (EINV_TRANS / EDIR_TRANS).
 
-TPU-native redesign of the etrans transform chain
+A JAX redesign of the etrans transform chain
 (``einv_trans_ctl_mod.F90:264-292``): no per-m loop — the meridional DFT
 (the reference's ELEINV/ELEDIR "Legendre" stage, ``eleinv_mod.F90:95-108``)
 and the zonal DFT run as whole-tensor batched chirp-z transforms on (re, im)

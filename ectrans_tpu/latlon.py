@@ -3,7 +3,7 @@
 The reference's lat-lon path (``LDLL``, ``setup_trans.F90`` dual-latitude
 set RMU2 + FMM interpolation between Gaussian and equidistant latitudes,
 ``cdmap_mod.F90``, ``seefmm_mix.F90``) exists because re-evaluating Legendre
-polynomials on a second latitude set was expensive on CPU.  On TPU the
+polynomials on a second latitude set was expensive on CPU.  Here the
 natural design is *exact spectral evaluation*: build a second parity-split
 P-table at the equidistant latitudes with the same native builder and run
 the identical batched synthesis pipeline — no interpolation error at all.

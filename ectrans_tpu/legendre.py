@@ -1,8 +1,8 @@
 """Normalized associated Legendre polynomial tables (host precompute, fp64).
 
-TPU-native replacement for the reference's Legendre setup
+A replacement for the reference's Legendre setup
 (``suleg_mod.F90``, ``supol_mod.F90``/``supolf_mod.F90``): instead of per-m
-matrices it builds dense, zero-padded tensors ready for batched MXU matmuls.
+matrices it builds dense, zero-padded tensors ready for batched matmuls.
 
 Normalization (ecTrans / IFS convention):
     P̄_n^m(mu) = sqrt((2n+1) (n-m)! / (n+m)!) * P_n^m(mu),   no Condon-Shortley

@@ -10,6 +10,7 @@ requirement.
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import mmap
 import os
 import pathlib
@@ -56,19 +57,28 @@ def _build_dir() -> pathlib.Path:
     return _SRC_DIR
 
 
+_FLAGS = ["-O3", "-fPIC", "-shared", "-std=c++17", "-funroll-loops"]
+
+
+def _lib_path() -> pathlib.Path:
+    """Library path keyed by a hash of the sources and compiler flags, so a
+    library built from other sources (a stale or copied file) is never
+    loaded."""
+    h = hashlib.sha256(" ".join(_FLAGS).encode())
+    for s in _SOURCES:
+        h.update((_SRC_DIR / s).read_bytes())
+    return _build_dir() / f"_ectrans_native_{h.hexdigest()[:16]}.so"
+
+
 def _compile() -> pathlib.Path | None:
-    out = _build_dir() / "_ectrans_native.so"
     srcs = [_SRC_DIR / s for s in _SOURCES]
     try:
-        newest_src = max(s.stat().st_mtime for s in srcs)
-        if out.exists() and out.stat().st_mtime >= newest_src:
+        out = _lib_path()
+        if out.exists():
             return out
         out.parent.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".tmp{os.getpid()}.so")
-        cmd = [
-            "g++", "-O3", "-fPIC", "-shared", "-std=c++17",
-            "-funroll-loops", "-o", str(tmp),
-        ] + [str(s) for s in srcs]
+        cmd = ["g++"] + _FLAGS + ["-o", str(tmp)] + [str(s) for s in srcs]
         subprocess.run(cmd, check=True, capture_output=True, timeout=300)
         os.replace(tmp, out)
         return out

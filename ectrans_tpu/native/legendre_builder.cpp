@@ -1,6 +1,6 @@
 // Native Legendre-table builder: the hot host-side setup kernel.
 //
-// TPU-native counterpart of the reference's native setup/algor layer (the
+// The counterpart of the reference's native setup/algor layer (the
 // reference computes its Legendre matrices in Fortran SULEG/SUPOLF,
 // src/trans/cpu/internal/suleg_mod.F90, and keeps its performance-critical
 // GEMM/FFT/allocator layer in C++/CUDA, src/trans/gpu/algor/).  Here the

@@ -15,6 +15,7 @@ reduction).
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -43,8 +44,6 @@ def gpnorm_ad(res: Resolution, ave_ad):
     """Adjoint of the gpnorm average (GPNORM_TRANSAD): distribute the
     cotangent of each field average back over the grid with the area
     weights."""
-    import jax
-
     nfld = ave_ad.shape[0]
     shape = (nfld, res.ndgl, res.grid.ndlon)
     fwd = lambda g: gpnorm(res, g, ave_only=True)[0]
@@ -65,7 +64,11 @@ def gpnorm(res: Resolution, grid, ave_only: bool = False):
     mask = (np.arange(ndlon)[None, :] < nloen[:, None])  # (ndgl, ndlon)
     maskj = jnp.asarray(mask)
     latw = jnp.asarray(res.w / nloen)  # w(lat)/nloen(lat)
-    ave = jnp.einsum("fij,ij,i->f", grid, maskj.astype(grid.dtype), latw.astype(grid.dtype))
+    # HIGHEST: a float32 contraction at the default precision may run in
+    # TF32 on a GPU
+    ave = jnp.einsum("fij,ij,i->f", grid, maskj.astype(grid.dtype),
+                     latw.astype(grid.dtype),
+                     precision=jax.lax.Precision.HIGHEST)
     if ave_only:
         return ave, None, None
     big = jnp.asarray(jnp.finfo(grid.dtype).max, grid.dtype)

@@ -1,17 +1,16 @@
-"""Four-step (Cooley-Tukey N = N1*N2) FFT built from MXU matmuls.
+"""Four-step (Cooley-Tukey N = N1*N2) FFT built from real matmuls.
 
-The TPU-native way to run the Bluestein convolution FFTs: instead of
-log2(N) memory-bound radix-2 sweeps (each a full HBM round trip with
-pathological tilings — the pure-XLA loop in ``realfft.py`` OOMs at
-TCO1279), the DFT is factored as
+The Bluestein convolution FFTs run as matmuls rather than as log2(N)
+radix-2 sweeps (each a full device-memory round trip — the pure-XLA loop
+in ``realfft.py``): the DFT is factored as
 
     X[k1 + N1*k2] = DFT_N2( W_N^(n2*k1) * DFT_N1(x[n1*N2 + n2]) )
 
 with both inner DFTs executed as dense (N1, N1) / (N2, N2) complex matrix
-multiplies over the whole batch — exactly the shape the MXU wants (the
-same philosophy as the reference GPU backend feeding cuFFT,
-``hicfft.cuda.cu``, but expressed as matmuls instead of a vendor FFT).
-Three HBM round trips total, no tiny-lane tensors, no unrolled stages.
+multiplies over the whole batch (the reference GPU backend feeds cuFFT
+instead, ``hicfft.cuda.cu``; the design was chosen for an earlier
+accelerator with no FFT op and no complex dtype).  Three memory round
+trips in total, no unrolled stages.
 
 Ordering: the forward transform leaves results in (k1, k2) layout — flat
 position p = k1*N2 + k2 holds natural frequency k1 + N1*k2 (``ord_map``).
@@ -30,42 +29,39 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-# fp32 matmul pass count for the DFT/twiddle matmuls, keyed by the public
-# precision tier.  NB the FFT layer runs FULL fp32 (6-pass) at BOTH the
-# "highest" and "high" tiers: at 3 passes the chirp-z convolution lengths
-# (~4k at TCO1279) amplify the 2^-21 operand rounding past the reference's
-# 100*eps(fp32) benchmark gate (measured 3.3e-4 vs gate 6.3e-5 at TCO1279),
-# while the Legendre layer at 3 passes stays inside (3.7e-5).  The split
-# mirrors the reference GPU backend's own precision choices: reduced-
-# precision Legendre GEMMs (CUTLASS 3xTF32, ``hicblas_cutlass.cuda.h``)
-# with full-fp32 cuFFT.  The bf16 tier reduces both layers and is gated at
-# the reference's relaxed FLT precedent (1e6*eps).
-_TIER_PREC = {
-    "highest": jax.lax.Precision.HIGHEST,
-    "high": jax.lax.Precision.HIGHEST,
-    "bf16": jax.lax.Precision.DEFAULT,
-}
-_PREC = jax.lax.Precision.HIGHEST
+from .legendre_matmul import tier_einsum
+
+# Precision tier of the DFT/twiddle matmuls for each public tier (see
+# legendre_matmul.tier_einsum for what each tier computes; float64 data
+# always contracts in true fp64).  The FFT layer runs true fp32 at BOTH the
+# "highest" and "high" tiers: reduced operand precision is amplified by
+# the chirp-z convolution lengths (~4k at TCO1279) past the reference's
+# 100*eps(fp32) benchmark gate, while the Legendre layer tolerates it.  The
+# split mirrors the reference GPU backend's own precision choices:
+# reduced-precision Legendre GEMMs (CUTLASS 3xTF32,
+# ``hicblas_cutlass.cuda.h``) with full-fp32 cuFFT.  The bf16 tier runs one
+# bf16 pass in both layers, gated at the reference's relaxed FLT precedent
+# (1e6*eps).
+_FFT_TIER = {"highest": "highest", "high": "highest", "bf16": "bf16"}
 
 
-def _fft_prec_override():
-    """ECTRANS_TPU_FFT_PREC overrides the FFT-layer pass count
-    independently of the public precision argument (mixed-precision
-    experiments: the LT and FFT layers have different error-vs-resolution
-    slopes — see _TIER_PREC)."""
+def fft_tier(prec) -> str:
+    """Tier of the FFT matmuls for a public tier (None = "highest").
+    ECTRANS_TPU_FFT_PREC overrides it independently of the public
+    precision argument (mixed-precision experiments: the LT and FFT layers
+    have different error-vs-resolution slopes)."""
     import os
 
-    v = os.environ.get("ECTRANS_TPU_FFT_PREC", "")
-    m = {"highest": jax.lax.Precision.HIGHEST,
-         "high": jax.lax.Precision.HIGH,
-         "bf16": jax.lax.Precision.DEFAULT}
-    return m.get(v) if v else None
+    override = os.environ.get("ECTRANS_TPU_FFT_PREC", "")
+    if override:
+        return override
+    return _FFT_TIER["highest" if prec is None else prec]
 
 
 def _factor(n: int) -> tuple[int, int]:
-    """Split n = N1 * N2 with the lane factor N2 = 128 when possible (TPU
-    tiles pad the last dim to 128 lanes, so any other N2 wastes physical
-    memory); otherwise as square as possible."""
+    """Split n = N1 * N2 with N2 = 128 when possible (a factor chosen for
+    an earlier accelerator's 128-lane tiles; ROADMAP 3.2 re-measures it);
+    otherwise as square as possible."""
     if n % 128 == 0 and 2 <= n // 128 <= 512:
         return n // 128, 128
     n1 = int(np.sqrt(n))
@@ -75,9 +71,9 @@ def _factor(n: int) -> tuple[int, int]:
 
 
 def good_size(target: int) -> int:
-    """Smallest transform length >= target of the form k*128 (lane-aligned
-    four-step factors; a pow-2 length would pad the Bluestein convolution
-    by up to 2x)."""
+    """Smallest transform length >= target of the form k*128 (four-step
+    factors with N2 = 128, see _factor; a pow-2 length would pad the
+    Bluestein convolution by up to 2x)."""
     if target <= 256:
         return target
     return -(-target // 128) * 128
@@ -129,41 +125,56 @@ def _tables(n: int, dtype_str: str):
 
 
 def _cmatmul(ar, ai, br, bi, spec, prec=None):
-    """Complex einsum via Karatsuba: 3 real contractions instead of 4
-    (the matmuls are memory-bound multi-pass fp32 on the MXU, so pass
-    count is the cost): m1 = a_r b_r, m2 = a_i b_i, m3 = (a_r+a_i)(b_r+b_i);
+    """Complex einsum via Karatsuba: 3 real contractions instead of 4:
+    m1 = a_r b_r, m2 = a_i b_i, m3 = (a_r+a_i)(b_r+b_i);
     re = m1 - m2, im = m3 - m1 - m2."""
-    p = _PREC if prec is None else _TIER_PREC.get(prec, prec)
-    p = _fft_prec_override() or p
-    m1 = jnp.einsum(spec, ar, br, precision=p)
-    m2 = jnp.einsum(spec, ai, bi, precision=p)
-    m3 = jnp.einsum(spec, ar + ai, br + bi, precision=p)
+    tier = fft_tier(prec)
+    dt = jnp.result_type(ar, br)
+    m1 = tier_einsum(spec, ar, br, tier).astype(dt)
+    m2 = tier_einsum(spec, ai, bi, tier).astype(dt)
+    m3 = tier_einsum(spec, ar + ai, br + bi, tier).astype(dt)
     return m1 - m2, m3 - m1 - m2
 
 
 # ----------------------------------------------------------------------
-# K-packed bf16-limb complex matmuls — OPT-IN EXPERIMENT, measured SLOWER
-# (ECTRANS_TPU_FFT_MXU=pack to reproduce; default stays on the einsums).
+# K-packed bf16-limb complex matmuls — OPT-IN EXPERIMENT
+# (ECTRANS_TPU_FFT_MXU=pack; the default stays on the einsums).
 #
-# Round-5 history: 2D microbenchmarks (evidence/r5_fft_bench.log) showed
-# the production stage shapes 12-104x slower at Precision.HIGHEST than
-# one bf16 dot, motivating this path — each complex Karatsuba einsum as
-# ONE real bf16 dot at full fp32-mantissa coverage (complex-as-real
-# A=[xr|xi] against W=[[tr,ti],[-ti,tr]], both split into 3 bf16 limbs by
-# bitwise masking and the 6 kept limb pairs (j+k<=2, the bf16x6 set)
-# stacked along the contraction axis).  Accuracy checks out (stage error
-# 3e-7 relative, tests/test_fft_pack.py), but BOTH premises failed on
-# the idle chip (tools/_probe_conv.py, evidence/r5_fft_pack_verdict):
-# the earlier slow-HIGHEST numbers were inflated by chip contention from
-# concurrent evidence runs (idle eq-bucket conv: einsum 5.3 ms), and this
-# path's in-jit limb packing + axis(-2) dots lower pathologically
-# (253 ms) — the same lowering class that demoted the planes LT engine.
-# Kept opt-in for future backends where HIGHEST is genuinely multi-pass-
-# bound; the microbench lesson (2D flattened forms lower differently
-# than batched einsums) is recorded in BASELINE.md round 5.
+# Each complex Karatsuba einsum becomes ONE real bf16 dot at full
+# fp32-mantissa coverage: complex-as-real A=[xr|xi] against
+# W=[[tr,ti],[-ti,tr]], both split into 3 bf16 limbs by bitwise masking
+# and the 6 kept limb pairs (j+k<=2) stacked along the contraction axis.
+# Accuracy is pinned by tests/test_fft_pack.py (stage error ~3e-7
+# relative).  It was measured slower than the einsums on the accelerator
+# it was written for, and has not been measured on a GPU.
 # ----------------------------------------------------------------------
 
 _PAIRS = ((0, 0), (0, 1), (1, 0), (0, 2), (2, 0), (1, 1))
+
+
+def split_planes(x, nplanes: int):
+    """fp32 -> list of nplanes bf16 limb planes summing to x (~2^-25).
+
+    The limbs are extracted by BITWISE mantissa truncation, not by
+    round-trip casts: XLA's excess-precision simplification may fold
+    ``x - f32(bf16(x))`` patterns away inside larger programs (the bf16
+    rounding is elided), silently zeroing the low limbs.  Masking the low
+    16 mantissa bits yields a value exactly representable in bf16, the
+    subtraction is exact (Sterbenz), and no convert pair exists for the
+    simplifier to fold."""
+    if x.dtype != jnp.float32:
+        x = x.astype(jnp.float32)
+    mask = jnp.uint32(0xFFFF0000)
+    outs = []
+    rem = x
+    for _ in range(nplanes - 1):
+        hi = jax.lax.bitcast_convert_type(
+            jax.lax.bitcast_convert_type(rem, jnp.uint32) & mask,
+            jnp.float32)
+        outs.append(hi.astype(jnp.bfloat16))
+        rem = rem - hi
+    outs.append(rem.astype(jnp.bfloat16))
+    return outs
 
 
 def _np_split3(a):
@@ -214,8 +225,6 @@ def _pack_mm(xr, xi, wnp, axis=-1):
     output is (..., out) per half; with axis=-2 the contracted axis is
     removed and the kept last axis moves BEFORE the out axis — callers
     exploit this to four-step without explicit panel transposes."""
-    from .legendre_planes import split_planes
-
     lr = split_planes(xr, 3)
     li = split_planes(xi, 3)
     segs = [jnp.concatenate([lr[j], li[j]], axis) for (j, _) in _PAIRS]
@@ -233,18 +242,12 @@ def _pack_mm(xr, xi, wnp, axis=-1):
 
 def _pack_mode(prec, dtype) -> bool:
     """Packed-limb path active?  Only for fp32 data at the full-fp32
-    tiers ("highest"/"high" map to HIGHEST here); the bf16 tier keeps its
-    single-pass einsums and fp64 keeps true-fp64 contractions."""
+    tiers; the bf16 tier keeps its single-pass einsums and fp64 keeps
+    true-fp64 contractions."""
     import os
 
-    if jnp.dtype(dtype) != jnp.float32:
+    if jnp.dtype(dtype) != jnp.float32 or fft_tier(prec) != "highest":
         return False
-    p = _PREC if prec is None else _TIER_PREC.get(prec, prec)
-    p = _fft_prec_override() or p
-    if p != jax.lax.Precision.HIGHEST:
-        return False
-    # default (auto) = einsums: the packed path measured 48x SLOWER on
-    # this backend (see the block comment above)
     return os.environ.get("ECTRANS_TPU_FFT_MXU", "auto") == "pack"
 
 

@@ -2,9 +2,9 @@
 
 The packed layout is the ecTrans user layout (``suwavedi_mod.F90`` NASM0
 addressing, reproduced in ``resolution._build_packed_maps``); the dense and
-parity layouts are internal, zero-padded, static-shape tensors that XLA maps
-onto the MXU.  All conversions are gathers with precomputed index tables —
-the TPU-native replacement of PRFI1B/UPDSP's per-m copy loops
+parity layouts are internal, zero-padded, static-shape tensors that XLA
+batches into matmuls.  All conversions are gathers with precomputed index
+tables — the replacement of PRFI1B/UPDSP's per-m copy loops
 (``prfi1b_mod.F90``, ``updsp_mod.F90``).
 """
 
@@ -18,8 +18,8 @@ def packed_to_dense(spec, tables):
 
     One row-slice gather (M start offsets, contiguous 2*(NP+1)-wide slices —
     each m-block is contiguous in the packed layout) followed by the
-    diagonal-realignment reshape; ~5x cheaper than a per-element gather on
-    TPU.  The validity mask restores exact zeros outside m <= n <= nsmax.
+    diagonal-realignment reshape (chosen over a per-element gather on the
+    accelerator the layout was designed for).  The validity mask restores exact zeros outside m <= n <= nsmax.
     """
     from jax import lax
 
@@ -42,12 +42,9 @@ def packed_to_dense(spec, tables):
 def dense_to_packed(dense, tables):
     """(nfld, 2, M, NP) -> (nfld, nspec2).
 
-    A per-element gather.  NB round-2 measurement: reformulations with
-    monotone unit-stride gathers from a diagonal-realigned buffer (with
-    either a (re,im) interleave transpose or two half gathers) are 1.4-1.7x
-    SLOWER on this TPU backend — XLA's gather lowering does not reward
-    monotonicity, and last-dim-2 relayouts are pathological.  A Pallas
-    ragged-compaction kernel is the remaining route if this shows up hot.
+    A per-element gather.  Whether it is hot on a GPU, and whether a
+    unit-stride reformulation or a compaction kernel beats it, is ROADMAP
+    1.5 (decided from a profiler trace).
     """
     return dense[:, tables.packed_gather_c, tables.packed_gather_m, tables.packed_gather_n]
 
@@ -59,8 +56,7 @@ def dense_to_parity(dense, tables):
     as a pure pad + reshape: appending one slot per m-row turns the
     diagonal realignment D2[m, j] = dense[m, m+j] into the identity on the
     flat buffer (index algebra m*(W+1) + j = m*W + (m+j)), so no gather is
-    needed — gathers/scatters cost ~60 ms per 10-field round trip on TPU,
-    this costs two relayouts.  Entries beyond the m-th diagonal's end are
+    needed; this costs two relayouts.  Entries beyond the m-th diagonal's end are
     neighbouring rows' data; they are harmless downstream because the
     Legendre tables are zero there and every n+-1 recurrence coefficient
     vanishes at the parity boundary (eps(m, m) = 0).
@@ -83,9 +79,9 @@ def parity_to_dense(sym, asym, tables, NP):
 
     The parity interleave is a static last-axis gather from the
     concatenated [sym | asym | 0] buffer — NOT a stack on a new trailing
-    axis of size 2: XLA assigns that temp a (…, K, 2) tiled layout whose
-    lane dimension is 2/128 occupied, a 32x padded-memory expansion (4 GB
-    for a 128 MB tensor at T2047 — the allocation that OOMed one chip).
+    axis of size 2, which a tiled layout may pad along that minor axis
+    (a 32x padded-memory expansion on the accelerator the layout was
+    designed for).
     """
     import numpy as np
 

@@ -1,13 +1,12 @@
 """Power-of-two FFT in pure real arithmetic (separate re/im arrays).
 
 NOTE: the production Fourier layer uses ``ops.fft_fourstep`` (the four-step
-MXU-matmul FFT); this radix-2 formulation is retained as an independent
+matmul FFT); this radix-2 formulation is retained as an independent
 numerical cross-check.
 
-The TPU backend used here exposes **no complex dtype and no XLA FFT op**
-(complex64 upload and ``jnp.fft.*`` both fail with UNIMPLEMENTED), so the
-Fourier layer cannot lean on ``jnp.fft`` the way the reference leans on
-FFTW/cuFFT (``tpm_fftw.F90``, ``hicfft.cuda.cu``).  Instead this module
+Like the production layer, it avoids complex dtypes and ``jnp.fft`` (the
+accelerator the layer was designed for had neither; the reference leans on
+FFTW/cuFFT, ``tpm_fftw.F90``, ``hicfft.cuda.cu``).  Instead this module
 implements an iterative radix-2 DIF FFT on (re, im) float array pairs:
 
 * every stage is a whole-array butterfly (4 mul + 6 add elementwise ops with

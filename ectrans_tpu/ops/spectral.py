@@ -107,52 +107,6 @@ def uv_to_vordiv(u, v, t):
     return vor * valid, div * valid
 
 
-def _realign(t):
-    """(M, NP) coefficient table -> (M, NP+1) diagonal-realigned:
-    out[m, j] = t[m, m+j] (zero beyond the diagonal's end)."""
-    M, NP = t.shape
-    out = np.zeros((M, NP + 1), t.dtype)
-    for m in range(M):
-        out[m, : NP - m] = t[m, m:]
-    return out
-
-
-def uvtvd_coeff_tables_mmajor(res, dtype=np.float32):
-    """Realigned (M, NP+1) tables for uv_to_vordiv_rows: the m-major
-    dense-row pipeline indexes degree as j = n - m, so the n+-1 couplings
-    stay plain shifts along the last axis while m is the leading axis."""
-    t = uvtvd_coeff_tables(res, np.float64)
-    return {k: np.asarray(_realign(np.asarray(v, np.float64)), dtype)
-            for k, v in t.items()}
-
-
-def uv_to_vordiv_rows(rows, m0, nuv, nfld, t):
-    """UVTVD on one m-group of c-major realigned rows.
-
-    rows: (gm, 2*nfld, J) with sublane index c*nfld + f (c = re/im); the
-    u fields are f in [0, nuv), v in [nuv, 2*nuv).  t: realigned tables
-    (uvtvd_coeff_tables_mmajor) sliced per group is done here via m0.
-    Returns (gm, 4*nuv, J) c-major rows of [vor, div]:
-    sublanes [vor_re, div_re, vor_im, div_im] each nuv wide.
-    """
-    import jax.numpy as jnp
-
-    gm, fc2, J = rows.shape
-    u_re = rows[:, 0:nuv]
-    v_re = rows[:, nuv : 2 * nuv]
-    u_im = rows[:, nfld : nfld + nuv]
-    v_im = rows[:, nfld + nuv : nfld + 2 * nuv]
-    p = t["p"][m0 : m0 + gm, None, :J]
-    q = t["q"][m0 : m0 + gm, None, :J]
-    valid = t["valid"][m0 : m0 + gm, None, :J]
-    mvec = t["r"][m0 : m0 + gm, None, 0:1]   # r[m, j] = m for all valid j
-    vor_re = (-mvec * v_im - p * _shift_up(u_re) + q * _shift_down(u_re)) * valid
-    vor_im = (mvec * v_re - p * _shift_up(u_im) + q * _shift_down(u_im)) * valid
-    div_re = (-mvec * u_im + p * _shift_up(v_re) - q * _shift_down(v_re)) * valid
-    div_im = (mvec * u_re + p * _shift_up(v_im) - q * _shift_down(v_im)) * valid
-    return jnp.concatenate([vor_re, div_re, vor_im, div_im], axis=1)
-
-
 def nsder_coeff_tables(res, dtype=np.float32):
     """Tables for ns_derivative (SPNSDE):
       a[m,n] = (n-1) eps(n,m)      (coupling to n-1)

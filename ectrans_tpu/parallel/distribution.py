@@ -1,4 +1,4 @@
-"""Distributed-transform bookkeeping: the TPU-native SUWAVEDI/SUMPLAT.
+"""Distributed-transform bookkeeping: the analogue of SUWAVEDI/SUMPLAT.
 
 Builds, on host, everything a (w, v) mesh needs to run sharded transforms:
 
@@ -85,7 +85,7 @@ class Distribution:
     pos_of_m: np.ndarray    # (M,) position of natural m in the permuted axis
     pm_perm_pos: np.ndarray  # (nspec2,) permuted-axis position per packed idx
     groups: tuple           # tuple[GroupMeta]
-    # length-sorted latitude distribution (the TPU analogue of SUMPLAT's
+    # length-sorted latitude distribution (the analogue of SUMPLAT's
     # load balance): permuted position p = s*LLW + j holds the row of
     # global length-sorted rank j*w + s, so every "w" shard owns an equal
     # mix of short/long rows AND local slot range [lb0, lb1) covers
@@ -211,37 +211,14 @@ def _permute_m_rows(table: np.ndarray, perm: np.ndarray, pad_value=0.0):
     return padded[np.minimum(perm, M)]
 
 
-def _realign_rows(table: np.ndarray, perm: np.ndarray, M: int,
-                  fill=0.0) -> np.ndarray:
-    """(M, NP) coefficient/index table -> (M_pad, NP+1) permuted AND
-    diagonal-realigned: out[p, j] = table[perm[p], perm[p] + j] (``fill``
-    beyond each row's diagonal end and on padding rows).  The dense-row
-    engine's j = n - m layout for a permuted m axis — unlike the
-    single-device ``_diag_realign`` reshape trick this must be built
-    explicitly because row index != m."""
-    NPl = table.shape[1]
-    out = np.full((len(perm),) + (NPl + 1,) + table.shape[2:], fill,
-                  table.dtype)
-    for p, m in enumerate(perm):
-        if m < M:
-            out[p, : NPl - m] = table[m, m:]
-    return out
-
-
-def host_tables(dist: Distribution, dtype_str: str = "float32",
-                engine: str = "xla") -> dict:
+def host_tables(dist: Distribution, dtype_str: str = "float32") -> dict:
     """All numpy tables for the sharded pipeline, in permuted/padded layout.
 
     Keys ending in ``_w`` are sharded over mesh axis "w" on their first
     (or stated) axis; others are replicated.  ``dtype_str`` selects the
     Legendre-table precision source (fp64 requests lazily upgrade fp32
-    setup tables — see ``Resolution.parity_tables``).
-
-    ``engine`` keys the big Legendre tensors: ``"xla"`` builds the parity
-    pairs (``lg{gi}_psym/pasym_w``) the grouped-einsum path contracts;
-    ``"dense"`` builds the full-n interleaved tensors (``fl{gi}_pn_w``)
-    plus the realigned gather/coefficient tables the dense-row Pallas
-    kernels consume (same element count — only one set is ever resident).
+    setup tables — see ``Resolution.parity_tables``).  The big Legendre
+    tensors are the parity pairs ``lg{gi}_psym_w``/``lg{gi}_pasym_w``.
     """
     res = dist.res
     M, NP = res.M, res.NP
@@ -304,63 +281,18 @@ def host_tables(dist: Distribution, dtype_str: str = "float32",
     # sharded over "w" each shard sees the identically-shaped (Lg, Ig, Kg)
     ML = dist.ML
     psym_h, pasym_h = res.parity_tables(dtype_str)
-    if engine == "dense":
-        # dense-row engine: full-n interleaved tensors (sym at even j,
-        # asym at odd j — j = n - m), per-shard rows as in the parity
-        # branch below; the kernels derive the south hemisphere from the
-        # (-1)^j parity sign, so ONE tensor serves both hemispheres
-        # (ops/legendre_pallas.py) at the same element count
-        for gi, g in enumerate(dist.groups):
-            ig = res.ndgnh - g.i0
-            pn = np.zeros((dist.w * g.Lg, 2 * g.kg, ig))
-            for s in range(dist.w):
-                for j in range(g.Lg):
-                    m = perm[s * ML + g.off + j]
-                    if m < M:
-                        pn[s * g.Lg + j, 0::2] = psym_h[m, g.i0:, : g.kg].T
-                        pn[s * g.Lg + j, 1::2] = pasym_h[m, g.i0:, : g.kg].T
-            out[f"fl{gi}_pn_w"] = pn
-        # realigned spectral-operator coefficient tables: the n+-1
-        # couplings of VDTUV/UVTVD/SPNSDE are j+-1 shifts in this layout
-        for pre, ct in (("vdr", ct_vd), ("tvr", ct_tv), ("nsr", ct_ns)):
-            for k, val in ct.items():
-                out[f"{pre}_{k}_w"] = _realign_rows(
-                    np.asarray(val, np.float64), perm, M)
-        # packed index -> realigned j for the psum pack (j = n - m)
-        out["packed_j"] = res.packed_gather_n - res.packed_gather_m
-        # row-slice packed->dense (layout.packed_to_dense's formulation on
-        # the permuted m axis): per-row packed block start (pad rows point
-        # at the zero region past nspec2) + realigned validity mask
-        nasm0 = np.asarray(res.nasm0, np.int64)
-        mrow = np.minimum(perm, M - 1)
-        out["nasm0_perm_w"] = np.where(perm < M, nasm0[mrow], res.nspec2)
-        jj = np.arange(NP + 1)
-        lrow = np.where(perm < M, res.nsmax - mrow + 1, 0)
-        out["rvalid_w"] = (jj[None, :] < lrow[:, None]).astype(np.float64)
-        # natural m -> shard-local row (or ML = zero row when another
-        # shard owns m): lets each shard assemble a full-M m-major rows
-        # tensor by ONE row gather and run the production compaction
-        # kernel before the psum (ops/pack_pallas.py)
-        rom = np.full((dist.w, M), dist.ML, np.int64)
+    for gi, g in enumerate(dist.groups):
+        ig = res.ndgnh - g.i0
+        ps = np.zeros((dist.w * g.Lg, ig, g.kg))
+        pa = np.zeros((dist.w * g.Lg, ig, g.kg))
         for s in range(dist.w):
-            for p in range(dist.ML):
-                m = perm[s * dist.ML + p]
+            for j in range(g.Lg):
+                m = perm[s * ML + g.off + j]
                 if m < M:
-                    rom[s, m] = p
-        out["rom_w"] = rom
-    else:
-        for gi, g in enumerate(dist.groups):
-            ig = res.ndgnh - g.i0
-            ps = np.zeros((dist.w * g.Lg, ig, g.kg))
-            pa = np.zeros((dist.w * g.Lg, ig, g.kg))
-            for s in range(dist.w):
-                for j in range(g.Lg):
-                    m = perm[s * ML + g.off + j]
-                    if m < M:
-                        ps[s * g.Lg + j] = psym_h[m, g.i0 :, : g.kg]
-                        pa[s * g.Lg + j] = pasym_h[m, g.i0 :, : g.kg]
-            out[f"lg{gi}_psym_w"] = ps
-            out[f"lg{gi}_pasym_w"] = pa
+                    ps[s * g.Lg + j] = psym_h[m, g.i0 :, : g.kg]
+                    pa[s * g.Lg + j] = pasym_h[m, g.i0 :, : g.kg]
+        out[f"lg{gi}_psym_w"] = ps
+        out[f"lg{gi}_pasym_w"] = pa
     return out
 
 

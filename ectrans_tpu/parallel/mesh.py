@@ -10,7 +10,7 @@ A x B sets) maps onto a single 2-D ``jax.sharding.Mesh`` with axes:
   extra latitude splitting in grid space.
 
 All transpositions (TRMTOL/TRLTOM/TRGTOL/TRLTOG) become ``lax.all_to_all``
-over one of these axes, riding ICI on real pods.
+over one of these axes (NCCL over NVLink between GPUs).
 """
 
 from __future__ import annotations

@@ -46,6 +46,10 @@ def main(argv=None):
         jax.config.update("jax_enable_x64", True)
     import jax.numpy as jnp
 
+    from ectrans_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
+
     import ectrans_tpu as et
     from ectrans_tpu import norms
     from ectrans_tpu.transform import InvFlags

@@ -47,6 +47,10 @@ def main(argv=None):
         jax.config.update("jax_enable_x64", True)
     import jax.numpy as jnp
 
+    from ectrans_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
+
     from ectrans_tpu.lam import (
         LamInvFlags, dir_trans_lam, especnorm, inv_trans_lam,
         make_lam_grid, setup_lam,

@@ -3,7 +3,7 @@
 ecTrans callers exchange grid-point data in NPROMA-blocked arrays
 ``PGP(NPROMA, NFLD, NGPBLKS)`` over the locally-owned reduced-grid points
 (``inv_trans.F90:58-106``; INIGPTR ``inigptr_mod.F90``).  XLA has no use
-for NPROMA (it tiles internally), so the TPU framework's native grid layout
+for NPROMA (it tiles internally), so this framework's native grid layout
 is the padded (nfld, ndgl, ndlon) tensor — these converters exist for
 callers porting NPROMA-shaped code and for bitwise output comparison with
 the reference.

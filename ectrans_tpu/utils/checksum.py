@@ -2,7 +2,7 @@
 
 The reference asserts bit-identical CRC64 checksums of transform outputs
 across every MPI x OpenMP decomposition (``tests/compare_checksums.py``,
-``tests/CMakeLists.txt:232-241``).  The TPU analogue compares 1-device vs
+``tests/CMakeLists.txt:232-241``).  The analogue here compares 1-device vs
 N-virtual-device runs; this helper provides the stable digest.
 """
 

@@ -1,6 +1,6 @@
 /*
  * ectrans_tpu C API — the transi-equivalent surface (reference
- * src/transi/transi.h) for C/C++/Fortran callers of the TPU-native
+ * src/transi/transi.h) for C/C++/Fortran callers of the JAX
  * spectral transform framework.
  *
  * The library embeds a Python interpreter and drives the JAX/XLA engine

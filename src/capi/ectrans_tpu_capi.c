@@ -6,7 +6,7 @@
  *
  * Raw pointers are passed to the bridge as (address, length) integers;
  * the bridge wraps them zero-copy with numpy.ctypeslib and launches the
- * jitted TPU pipelines.
+ * jitted JAX pipelines.
  *
  * GIL: when this library initializes the interpreter itself, the
  * initializing thread keeps the GIL (single-threaded embedding).  When a

@@ -19,6 +19,7 @@ def run_cli(args, tmp_path):
         "ECTRANS_TPU_LEGPOL_DIR": "",
         "PATH": "/usr/bin:/bin",
         "HOME": str(tmp_path),
+        "JAX_COMPILATION_CACHE_DIR": str(tmp_path / "jax_cache"),
     }
     out = subprocess.run(
         [sys.executable, "-m"] + args, capture_output=True, text=True,

@@ -1,7 +1,7 @@
 """Independent numerical cross-checks of the Fourier stack.
 
 Three mutually independent DFT implementations must agree:
-* ``ops.fft_fourstep`` — the production four-step MXU-matmul FFT,
+* ``ops.fft_fourstep`` — the production four-step matmul FFT,
 * ``ops.realfft`` — radix-2 DIF butterflies (entirely different algorithm),
 * an O(n²) direct DFT evaluated in float64 numpy (ground truth).
 

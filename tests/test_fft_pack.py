@@ -1,5 +1,5 @@
-"""K-packed bf16-limb FFT matmul path (ops/fft_fourstep, the
-"highest"-tier fast formulation; evidence/r5_fft_bench.log).
+"""K-packed bf16-limb FFT matmul path (ops/fft_fourstep, an opt-in
+"highest"-tier formulation).
 
 Pins: (a) the packed fft_ord/ifft_from_ord match the einsum formulation
 at full-fp32-class accuracy across small-n, four-step, pruned-input and
@@ -98,3 +98,22 @@ def test_pack_full_layer_synthesis_analysis(monkeypatch):
     a1 = np.asarray(a1r)
     assert np.abs(g1 - g0).max() / np.abs(g0).max() < TOL
     assert np.abs(a1 - a0).max() / np.abs(a0).max() < TOL
+
+
+def test_split_planes_exact():
+    """The bitwise limb split reconstructs fp32 to ~2^-24 with 3 planes,
+    and one plane is plain bf16 rounding."""
+    rng = np.random.default_rng(0)
+    x = jnp.asarray(np.concatenate([
+        rng.standard_normal(500),
+        10.0 ** rng.uniform(-30, 3, 500) * np.sign(rng.standard_normal(500)),
+        [0.0, 1.0, -1.0],
+    ]), jnp.float32)
+    planes = fs.split_planes(x, 3)
+    rec = sum(p.astype(jnp.float32) for p in planes)
+    rel = np.abs(np.asarray(rec - x)) / np.maximum(np.abs(np.asarray(x)), 1e-38)
+    assert rel.max() < 2 ** -23, rel.max()
+    # single-plane split == plain bf16 rounding to within 1 ulp(bf16)
+    one = fs.split_planes(x, 1)[0].astype(jnp.float32)
+    rel1 = np.abs(np.asarray(one - x)) / np.maximum(np.abs(np.asarray(x)), 1e-38)
+    assert rel1.max() < 2 ** -7.5, rel1.max()

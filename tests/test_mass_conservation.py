@@ -2,12 +2,12 @@
 
 The reference computes the m=0 Legendre transform in float64 even in its
 single-precision build (``ledir_mod.F90:139-172``) because the global mean
-(mass) must not drift over thousands of model timesteps.  The TPU backend
-here has no device float64, so the framework's answer is:
+(mass) must not drift over thousands of model timesteps.  The framework's
+answer is:
 
-* fp32 compute with fp32 (HIGHEST) accumulation — measured drift of the
+* fp32 compute with fp32 (HIGHEST) accumulation — drift of the
   global-mean coefficient is ~5e-7 per round trip (random-walk-like), and
-* a true-fp64 CPU path for mass-critical offline work.
+* a true-fp64 path (dtype=float64) for mass-critical work.
 
 This test pins those measured rates so a regression in the accumulation
 strategy (e.g. a kernel change that silently drops to bf16 accumulation,

@@ -144,7 +144,7 @@ def test_precision_bf16_tier_relaxed_gate():
     """precision="bf16" (single-pass contraction + bfloat16 grouped tables,
     the TCO2047 memory mode) round-trips within the reference's relaxed FLT
     gate (1e6*eps, reference tests/CMakeLists.txt:316) — and the tables it
-    streams really are bfloat16 (half the LT HBM traffic)."""
+    streams really are bfloat16 (half the LT table traffic)."""
     res = et.setup("O48", 47)
     spec = random_packed(res, 3, seed=11).astype(np.float32)
     g = et.inv_trans(res, spscalar=jnp.asarray(spec), dtype=jnp.float32,

@@ -1,6 +1,6 @@
 """Decomposition invariance: sharded transforms == single-device transforms.
 
-The TPU-native equivalent of the reference's checksum tests
+The equivalent of the reference's checksum tests
 (tests/compare_checksums.py: results must be identical across MPI x OMP
 decompositions).  Here: every (w, v) mesh shape on 8 virtual CPU devices must
 reproduce the single-device result to float tolerance.
@@ -136,18 +136,15 @@ def test_sharded_bf16_tier_relaxed_gate():
 
 
 @pytest.mark.parametrize("w,v", [(1, 1), (2, 1), (4, 2)])
-def test_sharded_dense_engine_roundtrip(w, v, monkeypatch):
-    """The production dense-row engine's sharded port (realigned rows,
-    row-slice packed<->dense, compaction-kernel psum) in interpret mode:
-    full fp32 roundtrip vs the single-device result on the CPU mesh."""
-    monkeypatch.setenv("ECTRANS_TPU_LEG_KERNEL", "dense")
-    monkeypatch.setenv("ECTRANS_TPU_PACK_KERNEL", "force")
+def test_sharded_dense_engine_roundtrip(w, v):
+    """The sharded grouped-einsum path (dense spectral layout, per-element
+    packed gather + psum) in fp32: full round trip vs the fp64
+    single-device result on the CPU mesh."""
     res = et.setup("O48", 47)
     vor, div, sc = _random_state(res, 2, 2, seed=9)
     flags = et.InvFlags(scders=True, uvders=True)
     st = ShardedTransform(res, make_mesh(w, v), dtype=jnp.float32)
-    assert st.eng == "dense"
-    assert st._pack_plan is not None
+    assert any(k.startswith("lg") for k in st.tables)
     grid = st.inv_trans(spvor=jnp.asarray(vor, jnp.float32),
                         spdiv=jnp.asarray(div, jnp.float32),
                         spscalar=jnp.asarray(sc, jnp.float32), flags=flags)
@@ -155,7 +152,7 @@ def test_sharded_dense_engine_roundtrip(w, v, monkeypatch):
         res, spvor=jnp.asarray(vor), spdiv=jnp.asarray(div),
         spscalar=jnp.asarray(sc), flags=flags, dtype=jnp.float64))
     gerr = np.abs(np.asarray(grid) - ref).max() / np.abs(ref).max()
-    assert gerr < 1e-5, f"(w={w},v={v}) dense inv mismatch {gerr}"
+    assert gerr < 1e-5, f"(w={w},v={v}) fp32 inv mismatch {gerr}"
     gv, gd, gs = st.dir_trans(u=grid[:2], v=grid[2:4], scalars=grid[4:6])
     rv, rd, rs = et.dir_trans(res, u=jnp.asarray(ref[:2]),
                               v=jnp.asarray(ref[2:4]),
@@ -164,7 +161,7 @@ def test_sharded_dense_engine_roundtrip(w, v, monkeypatch):
     for name, g, r in (("vor", gv, rv), ("div", gd, rd), ("sc", gs, rs)):
         r = np.asarray(r)
         err = np.abs(np.asarray(g) - r).max() / np.abs(r).max()
-        assert err < 1e-5, f"(w={w},v={v}) dense dir {name} mismatch {err}"
+        assert err < 1e-5, f"(w={w},v={v}) fp32 dir {name} mismatch {err}"
 
 
 FLAG_CASES = [
